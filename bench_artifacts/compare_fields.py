@@ -2,10 +2,10 @@
 
 Reads converge_flagship_{default,high,selective}.npz (written by
 scripts/converge_flagship.py) against converge_flagship_highest.npz (the
-exact bf16x6 reference) and writes the precision-tier table
+full-f32 reference) and writes the precision-tier table
 field_precision_delta.txt: relative L2 / max field bias of each tier's
-converged solution — the measured bf16-MXU bias amplified ~1/(1-rho) into
-the fixed point (BASELINE.md)."""
+converged solution — the per-step operand rounding amplified ~1/(1-rho)
+into the fixed point."""
 import os
 
 import numpy as np

@@ -1,7 +1,7 @@
-"""Record the FULL-K C++ baseline artifact (VERDICT r2 item 9).
+"""Record the FULL-K C++ baseline artifact.
 
 One outer iteration of the native reference-mirror solver
-(pbte_tpu/native/solver_native.cpp) on the flagship shape — hex 16^3,
+(pbte/native/solver_native.cpp) on the flagship shape — hex 16^3,
 p=2 (D=27), the full 4x16 = 64-direction product quadrature, 2x20 bands —
 validating bench.py's 8-direction-subset extrapolation with a measured
 full-K artifact. Writes cpp_fullK.txt next to this script."""
@@ -14,11 +14,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 
 import numpy as np
 
-from pbte_tpu import mesh as pmesh
-from pbte_tpu import native
-from pbte_tpu.angular import quadrature as ang
-from pbte_tpu.fem import assembly
-from pbte_tpu.material import nongray_smrt as mat
+from pbte import mesh as pmesh
+from pbte import native
+from pbte.angular import quadrature as ang
+from pbte.fem import assembly
+from pbte.material import nongray_smrt as mat
 
 m = pmesh.make_cartesian_3d(16, 16, 16, "hex").scaled(1e-6)
 ops = assembly.assemble(pmesh.connect(m), order=2, face_mode="consistent")

@@ -1,20 +1,20 @@
-"""Tet-mesh benchmark: the legacy production shape (VERDICT r2 item 4).
+"""Tet-mesh benchmark: the legacy production shape.
 
 Shape from the reference's production config (ref: Reference Project/config/
 control/Control.yaml:13-21): cuboid 5x5x5 gmsh 6-tet mesh (750 tets), p=3
 DG (D=20), 16x24 product angular quadrature (384 directions), full non-gray
 2x20-band silicon spectrum. Reports element-ordinate DOF/s and the sweep
-path the solver chose. Since r4 the SUPERCELL merge (fem/supercell.py)
-turns the 6-tet mesh into a 125-cell block lattice swept by the
-shift-structured ring (8 octant groups, D'=120), replacing the r3 scan
-path (24 ragged signature groups, 2.9x slot padding, full-K OOM).
+path the solver chose. The SUPERCELL merge (fem/supercell.py) turns the
+6-tet mesh into a 125-cell block lattice swept by the shift-structured ring
+(8 octant groups, D'=120) instead of the scan path (24 ragged signature
+groups, 2.9x slot padding).
 
 Writes bench_artifacts/tet_bench.json and prints one JSON line.
 
-Memory note: the macro slab plane is W=25 slots, which TPU lane tiling
-pads to 128 — at the full 384-direction quadrature the f32 state exceeds
-a 16 GB chip; run full-K with PBTE_RING_STATE_BF16=1 PBTE_RING_DONATE=1
-(the converge_tet.py defaults). The 96-direction default fits in f32.
+The memory policy picks bf16 state and buffer donation on its own when two
+f32 state buffers exceed their share of the device's memory
+(source_iteration._memory_limits); PBTE_RING_STATE_BF16=1 and
+PBTE_RING_DONATE=1 force them.
 
 Env overrides: PBTE_TET_N (default 5), PBTE_TET_ORDER (3),
 PBTE_TET_POLAR (8), PBTE_TET_AZIMUTH (12), PBTE_TET_NSPEC (20),
@@ -36,25 +36,16 @@ sys.path.insert(
 def main() -> None:
     import jax
 
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.environ.get(
-            "JAX_COMPILATION_CACHE_DIR",
-            os.path.join(
-                os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                ".jax_cache",
-            ),
-        ),
-    )
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.1)
+    from pbte.device import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
 
-    from pbte_tpu import mesh as pmesh
-    from pbte_tpu.angular import quadrature as ang
-    from pbte_tpu.fem import assembly
-    from pbte_tpu.material import nongray_smrt as mat
-    from pbte_tpu.solver.source_iteration import SourceIterationSolver
+    from pbte import mesh as pmesh
+    from pbte.angular import quadrature as ang
+    from pbte.fem import assembly
+    from pbte.material import nongray_smrt as mat
+    from pbte.solver.source_iteration import SourceIterationSolver
 
     n = int(os.environ.get("PBTE_TET_N", 5))
     order = int(os.environ.get("PBTE_TET_ORDER", 3))
@@ -90,7 +81,7 @@ def main() -> None:
     u, Tc, Tv = solver.initial_state()
     t0 = time.time()
     u, Tc, Tv2, r = solver.step(u, Tc, Tv)
-    _ = float(r)  # value fetch = the only reliable device sync here
+    jax.block_until_ready((u, Tc, Tv2, r))
     print(f"[bench_tet] compile+first step: {time.time()-t0:.1f}s",
           file=sys.stderr)
     t0 = time.time()
@@ -98,7 +89,7 @@ def main() -> None:
     for _ in range(steps):
         u, Tc, Tv2, r = solver.step(u, Tc, prev)
         prev = Tv2
-    _ = float(r)
+    jax.block_until_ready((u, Tc, Tv2, r))
     dt = time.time() - t0
     dofs = steps * K * BS * ne * D / dt
     rec = {

@@ -1,9 +1,9 @@
-"""Convergence-to-tolerance demo on the flagship problem (VERDICT r2 item 3).
+"""Convergence-to-tolerance demo on the flagship problem.
 
 Runs the hex 16^3 p=2 flagship (64 directions x 40 bands) source iteration
 to a target tolerance, recording the full residual curve, iterations and
 wall time, and writes bench_artifacts/converge_flagship.json. This is the
-"source-iters to 1e-8" half of the BASELINE.json north-star metric.
+"source iterations to 1e-8" half of the north-star metric (ROADMAP.md).
 
 Env:
   PBTE_CONV_TOL        target tolerance (default 1e-7)
@@ -14,8 +14,6 @@ Env:
   PBTE_CONV_ACCEL      "bicgstab" to Krylov-accelerate (solver/accel.py);
                        artifacts get an _bicgstab suffix
   PBTE_CONV_NX/ORDER/POLAR/AZIMUTH/NSPEC  shape overrides
-  PBTE_CONV_REF        "1" to also run a float64 scan-path reference on the
-                       CPU backend and report the field error (slow)
 """
 
 from __future__ import annotations
@@ -30,14 +28,14 @@ sys.path.insert(
 )
 
 
-def build(dtype, matmul_precision, platform=None):
+def build(dtype, matmul_precision):
     import jax.numpy as jnp
 
-    from pbte_tpu import mesh as pmesh
-    from pbte_tpu.angular import quadrature as ang
-    from pbte_tpu.fem import assembly
-    from pbte_tpu.material import nongray_smrt as mat
-    from pbte_tpu.solver.source_iteration import SourceIterationSolver
+    from pbte import mesh as pmesh
+    from pbte.angular import quadrature as ang
+    from pbte.fem import assembly
+    from pbte.material import nongray_smrt as mat
+    from pbte.solver.source_iteration import SourceIterationSolver
 
     nx = int(os.environ.get("PBTE_CONV_NX", 16))
     order = int(os.environ.get("PBTE_CONV_ORDER", 2))
@@ -81,16 +79,9 @@ def run_to_tol(solver, tol, probe, max_iter, check_every=10, polish=0):
 def main() -> None:
     import jax
 
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.environ.get(
-            "JAX_COMPILATION_CACHE_DIR",
-            os.path.join(os.path.dirname(os.path.dirname(
-                os.path.abspath(__file__))), ".jax_cache"),
-        ),
-    )
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.1)
+    from pbte.device import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
     import numpy as np
 
@@ -124,12 +115,6 @@ def main() -> None:
           f"{res.iterations} iters ({wall:.1f}s); tol {tol:g} at iter "
           f"{tol_hit}, probe {probe:g} at iter {probe_hit}", file=sys.stderr)
     Tc_f32 = np.asarray(res.Tc)
-
-    if os.environ.get("PBTE_CONV_REF", "") == "1":
-        # float64 scan reference on CPU for the absolute field error
-        import subprocess  # noqa: F401 — documented alternative: run this
-        # script with JAX_PLATFORMS=cpu JAX_ENABLE_X64=1 PBTE_CONV_REF=0
-        pass
 
     art = os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),

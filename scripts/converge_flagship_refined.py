@@ -1,53 +1,47 @@
-"""Iterative refinement on the TPU flagship: the 1e-8 field north star.
+"""Iterative refinement on the flagship: the 1e-8 field north star.
 
-Closes BASELINE.json's "match fields to 1e-8 L2" ON TPU (VERDICT r4 item 2).
-The measured precision chain (BASELINE.md): the f32 fixed point carries a
-converged bias from the f32 rounding of the step's own OUTPUTS (default tier
-8.1e-2 rel-L2, `high` 3.5e-4); compensated (double-f32) state was tested and
-refuted — widening the state cannot see output rounding. What does work
-(method-level proof: tests/test_accel.py::test_refined_solve_reaches_1e8) is
-classic ITERATIVE REFINEMENT with the correction solved AT x-SCALE:
+The f32 fixed point carries a converged bias from the f32 rounding of the
+step's own OUTPUTS and, at the default precision, from rounded matmul
+operands; compensated (double-f32) state was tested and refuted — widening
+the state cannot see output rounding. What does work (method-level proof:
+tests/test_accel.py::test_refined_solve_reaches_1e8) is classic ITERATIVE
+REFINEMENT with the correction solved AT x-SCALE:
 
   repeat:
     d  = F64(x) - x          # ONE step of an exact float64 twin (CPU)
     if ||d|| / ((1 - rho) ||x||) <= target: stop   # certified a-posteriori
-    solve (I - A) w = s*d with the f32 TPU solver  # s = 2^round(lg |x|/|d|)
+    solve (I - A) w = s*d with the f32 device solver  # s = 2^round(lg |x|/|d|)
     x += w / s               # combine in float64 on host
 
 Per-round error contraction is the f32 solver's own relative bias (the
-correction inherits it at x-scale), so `--tier high` (3.5e-4) needs ~2-3
+correction inherits it at x-scale), so a tier with a small bias needs few
 rounds from any f32 base point. The certification bound is the standard
 fixed-point a-posteriori estimate ||x - x*|| <= ||F(x) - x|| / (1 - rho)
 with rho measured from the base solve's residual decay.
 
 Because the contraction is set by the CORRECTION solver's tier, the BASE
 solve can run at the cheap default tier (--base-tier default): starting
-the refinement from the default-tier point (8.1e-2 bias) instead of the
-high-tier point (3.5e-4) costs at most one extra round while the base
-solve itself runs ~3x faster (the high tier is bf16x3 = 3 MXU passes per
-dot). --inner krylov replaces the plain fixed-point correction solve with
-BiCGStab (the defect is spilled to host). MEASURED r5 boundary: krylov
-OOMs at nx=16 on one 16 GB chip (the Krylov vectors sit beside the step's
-own state-sized temporaries) — use --inner plain there. MEASURED r5c at
-nx=10 ON TPU (converge_flagship_refined_krylov_nx10.json): certified
-6.2e-9 <= 1e-8 in 2 rounds / 472 total BiCGStab steps vs plain's ~1126
-per round x 3 rounds — each round's BiCGStab stagnation at the f32
-affinity floor (relres ~1.7e-3) IS the per-round contraction refinement
-needs, so the stagnation that kills direct deep-tolerance TPU Krylov
-(r4c artifact) is harmless inside refinement.
+the refinement from the default-tier point costs at most one extra round
+while the base solve itself runs faster. --inner krylov replaces the plain
+fixed-point correction solve with BiCGStab (the defect is spilled to host);
+its Krylov vectors sit beside the step's own state-sized temporaries, so it
+needs more device memory than --inner plain. Each round's BiCGStab
+stagnation at the f32 floor IS the per-round contraction refinement needs,
+so the stagnation that limits a direct deep-tolerance f32 Krylov solve is
+harmless inside refinement.
 
 The float64 twin runs in a persistent CPU subprocess (JAX_PLATFORMS=cpu,
 x64): an IDENTICAL SourceIterationSolver build (same mesh/quadrature/
 spectrum/ring plan — the plan depends only on the problem + PBTE_* env, not
 on dtype/platform), exchanging the raw state-tree leaves through npz files.
 Leaf shapes are asserted equal on both sides. Requires exact-dtype f32
-state: refuses PBTE_PALLAS / PBTE_RING_STATE_BF16 (different tree layouts).
+state: refuses PBTE_RING_STATE_BF16 (bf16 state leaves).
 
 Reference anchor: the fields being certified are the reference's converged
 Tc/Tv (src/MacroscopicQuantities.cpp:104-157); the f64 twin is the same
 step map the golden f64 CPU tests pin byte-identically.
 
-Usage (from repo root, TPU visible):
+Usage (from repo root, on the accelerator):
     python scripts/converge_flagship_refined.py [--nx 16] [--tier high]
         [--target 1e-8] [--rounds 4]
         [--out bench_artifacts/converge_flagship_refined.json]
@@ -101,7 +95,6 @@ def worker_main(args) -> int:
     os.environ["JAX_PLATFORMS"] = "cpu"
     import jax
 
-    jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     import numpy as np
 
@@ -163,10 +156,9 @@ def main() -> int:
     ap.add_argument("--inner-tol", type=float, default=1e-4)
     ap.add_argument("--inner-max-iter", type=int, default=1500)
     ap.add_argument("--inner", default="plain", choices=("plain", "krylov"),
-                    help="correction solver: plain fixed point (lowest "
-                         "HBM; required at nx=16 on one 16 GB chip — "
-                         "krylov OOMs there, measured r5) or bicgstab "
-                         "(~10x fewer step applications; use at nx<=12)")
+                    help="correction solver: plain fixed point (least "
+                         "device memory: 2 extra state trees) or bicgstab "
+                         "(fewer step applications, ~8 state trees)")
     ap.add_argument("--worker", action="store_true")
     ap.add_argument("--save-state", default="",
                     help="npz path for the refined f64 state leaves "
@@ -177,7 +169,7 @@ def main() -> int:
     if args.worker:
         return worker_main(args)
 
-    for var in ("PBTE_PALLAS", "PBTE_RING_STATE_BF16"):
+    for var in ("PBTE_RING_STATE_BF16",):
         if os.environ.get(var, "0") not in ("", "0"):
             raise SystemExit(f"refined run needs exact-dtype f32 state; "
                              f"unset {var}")
@@ -189,7 +181,7 @@ def main() -> int:
     import jax.numpy as jnp
     import numpy as np
 
-    from pbte_tpu.solver import accel
+    from pbte.solver import accel
 
     # ---- persistent f64 twin (CPU subprocess) ---------------------------
     wdir = tempfile.mkdtemp(prefix="pbte_refined_")
@@ -211,7 +203,7 @@ def main() -> int:
             raise RuntimeError(ln.strip())
         return ln
 
-    # ---- f32 base solve on TPU ------------------------------------------
+    # ---- f32 base solve on the device ------------------------------------------
     base_tier = args.base_tier or args.tier
     t0 = time.time()
     solver = _build(args.nx, base_tier, "float32")
@@ -262,12 +254,13 @@ def main() -> int:
     base_Tc = np.asarray(res.Tc, dtype=np.float64)
     base_iters, base_res = res.iterations, float(res.residual)
     # Free the base solve's device state: the correction loop needs the
-    # headroom (flagship state trees are ~1.1 GB each; keeping the base
-    # x on device alongside g/e/F(e) RESOURCE_EXHAUSTs one chip).
+    # headroom (flagship state trees are ~1.1 GB each, and the base x
+    # would sit on the device beside g/e/F(e)).
     for leaf in leaves32:
         leaf.delete()
     del res, leaves32
-    print(f"[refined] HBM after base-state free: {hbm()}", flush=True)
+    print(f"[refined] device memory after base-state free: {hbm()}",
+          flush=True)
 
     if base_tier != args.tier:
         # swap in the correction-tier solver: free the base solver's
@@ -283,7 +276,7 @@ def main() -> int:
         t0 = time.time()
         solver = _build(args.nx, args.tier, "float32")
         print(f"[refined] correction solver ({args.tier}) setup "
-              f"{time.time()-t0:.1f}s; HBM: {hbm()}", flush=True)
+              f"{time.time()-t0:.1f}s; device memory: {hbm()}", flush=True)
 
     worker_line()  # READY
     fin = os.path.join(wdir, "in.npz")
@@ -321,7 +314,7 @@ def main() -> int:
             print(f"[refined] round budget exhausted at bound {bound:.3e}",
                   flush=True)
             break
-        # ---- scaled f32 correction solve on TPU ------------------------
+        # ---- scaled f32 correction solve on the device ------------------------
         s_pow = float(2.0 ** np.round(np.log2(max(x_norm, 1e-300)
                                               / max(dn, 1e-300))))
         d32 = jax.tree_util.tree_unflatten(
@@ -352,7 +345,8 @@ def main() -> int:
         for leaf in e_leaves:
             leaf.delete()
         del e, e_leaves
-        print(f"[refined] HBM after round {rnd}: {hbm()}", flush=True)
+        print(f"[refined] device memory after round {rnd}: {hbm()}",
+              flush=True)
         x_norm = float(np.sqrt(sum(float((l ** 2).sum()) for l in x64)))
         rounds[-1].update({
             "s_pow": s_pow, "correction_steps": nstep,
@@ -398,7 +392,7 @@ def main() -> int:
             "certified a-posteriori: ||x - x*|| <= ||F64(x) - x||/(1-rho); "
             "F64 = one step of the float64 CPU twin (identical ring plan, "
             "state-tree leaves exchanged verbatim); correction solved at "
-            "x-scale on TPU f32 (accel.refined_solve method, "
+            "x-scale on the f32 device solver (accel.refined_solve method, "
             "tests/test_accel.py::test_refined_solve_reaches_1e8)"
         ),
         "inner": args.inner,

@@ -1,9 +1,9 @@
-"""Full-resolution legacy tet production run (VERDICT r3 item 1).
+"""Full-resolution legacy tet production run.
 
 The reference's legacy production configuration (ref: Reference Project/
 config/control/Control.yaml:13-21 + src/PhononBTE/PhononBTE.cpp:60):
 cuboid 5x5x5 6-tet gmsh mesh (750 tets), p=3 DG (D=20), 16x24 = 384
-directions, 2x20 silicon bands — run ON ONE CHIP at the FULL angular
+directions, 2x20 silicon bands — run on one device at the FULL angular
 resolution to convergence, via the supercell ring sweep (fem/supercell.py).
 
 Writes bench_artifacts/tet_fullres.json with per-phase timings, the
@@ -11,7 +11,7 @@ residual trace, and element-ordinate DOF/s.
 
 Env: PBTE_TETC_N (5), PBTE_TETC_ORDER (3), PBTE_TETC_POLAR (16),
 PBTE_TETC_AZIMUTH (24), PBTE_TETC_NSPEC (20), PBTE_TETC_TOL (1e-7),
-PBTE_TETC_MAXIT (3000), PBTE_TETC_STATE_BF16 (1), PBTE_TETC_DONATE (1).
+PBTE_TETC_MAXIT (3000), PBTE_TETC_STATE_BF16 (0), PBTE_TETC_DONATE (0).
 """
 
 from __future__ import annotations
@@ -27,35 +27,24 @@ sys.path.insert(
 
 
 def main() -> None:
-    # The WD state layout (D' on lanes, W on sublanes — 1.37x padding
-    # instead of the W-minor layout's 5.1x) lets the full-K f32 state fit
-    # the 16 GB chip without bf16 state or forced donation; both stay
-    # available as overrides for A/B.
+    # bf16 state and forced donation stay available as overrides for A/B;
+    # the memory policy picks them on its own when f32 state does not fit
     if os.environ.get("PBTE_TETC_STATE_BF16", "0") == "1":
         os.environ.setdefault("PBTE_RING_STATE_BF16", "1")
     if os.environ.get("PBTE_TETC_DONATE", "0") == "1":
         os.environ.setdefault("PBTE_RING_DONATE", "1")
     import jax
 
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.environ.get(
-            "JAX_COMPILATION_CACHE_DIR",
-            os.path.join(
-                os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                ".jax_cache",
-            ),
-        ),
-    )
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.1)
+    from pbte.device import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
 
-    from pbte_tpu import mesh as pmesh
-    from pbte_tpu.angular import quadrature as ang
-    from pbte_tpu.fem import assembly
-    from pbte_tpu.material import nongray_smrt as mat
-    from pbte_tpu.solver.source_iteration import SourceIterationSolver
+    from pbte import mesh as pmesh
+    from pbte.angular import quadrature as ang
+    from pbte.fem import assembly
+    from pbte.material import nongray_smrt as mat
+    from pbte.solver.source_iteration import SourceIterationSolver
 
     n = int(os.environ.get("PBTE_TETC_N", 5))
     order = int(os.environ.get("PBTE_TETC_ORDER", 3))
@@ -90,7 +79,7 @@ def main() -> None:
     u, Tc, Tv = solver.initial_state()
     t0 = time.time()
     u, Tc, Tv2, r = solver.step(u, Tc, Tv)
-    _ = float(r)
+    jax.block_until_ready((u, Tc, Tv2, r))
     t_compile = time.time() - t0
     print(f"[converge_tet] compile+first step: {t_compile:.1f}s",
           file=sys.stderr)

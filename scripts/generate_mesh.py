@@ -5,7 +5,7 @@ Equivalent of the legacy Reference Project's gmsh-python generators
 (ref: Reference Project/config/mesh/mesh_generator/cuboid_uniform_mesh.py):
 an n x n x n unit cuboid split into 6 tets per cell with physical surface
 groups Left/Right/Back/Front/Bottom/Top (tags 1-6), written directly in the
-gmsh 2.2 format pbte_tpu.mesh.gmsh_io parses — no gmsh dependency.
+gmsh 2.2 format pbte.mesh.gmsh_io parses — no gmsh dependency.
 
 Usage:
     python scripts/generate_mesh.py N [out.msh]
@@ -20,7 +20,7 @@ sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
 import numpy as np
 
-from pbte_tpu.mesh import builtins
+from pbte.mesh import builtins
 
 
 PHYSICAL_NAMES = {

@@ -2,7 +2,7 @@
 """Contour plot of a sampled temperature slice.
 
 Equivalent of the reference's scripts/plot2d_contour.py (parses the
-`# nx N ny N` header written by pbte_tpu.io.slice.write_2d_slice and renders
+`# nx N ny N` header written by pbte.io.slice.write_2d_slice and renders
 a filled contour). Usage:
 
     python scripts/plot2d_contour.py output/2D/results/T_slice.txt [out.png]

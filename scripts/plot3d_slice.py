@@ -1,9 +1,9 @@
 #!/usr/bin/env python
 """Plot 3D slice outputs: z-plane contours and 1D line profiles.
 
-TPU-framework counterpart of the reference's postprocessing notebook
+Framework counterpart of the reference's postprocessing notebook
 (ref: reference/plot3D.ipynb), as plot2d_contour.py is for the 2D slice
-script. Reads the text artifacts written by pbte_tpu.io.slice:
+script. Reads the text artifacts written by pbte.io.slice:
 
 - plane slices (write_3d_slice): header ``# nx N ny N z Z`` then columns
   ``x y T Qx Qy Qz``  ->  filled contour of T (optionally a Q-magnitude

@@ -1,10 +1,10 @@
 """AOT memory probe for the legacy tet shape (crash diagnosis).
 
 Compiles (does NOT execute) the tet-shape step on the current backend and
-prints XLA's memory analysis: argument/output/temp/peak bytes. The legacy
-16x24-angle tet bench crashed the TPU worker at first execution; this probe
-answers whether the compiled program's peak HBM exceeds the chip without
-triggering the crash (compilation allocates nothing on device).
+prints XLA's memory analysis: argument/output/temp/peak bytes, beside the
+device's memory budget. It answers whether the compiled program's peak
+exceeds the device without running it (compilation allocates nothing on
+the device).
 
 Env overrides match scripts/bench_tet.py.
 """
@@ -23,22 +23,16 @@ sys.path.insert(
 def main() -> None:
     import jax
 
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.path.join(
-            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-            ".jax_cache",
-        ),
-    )
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.1)
+    from pbte.device import enable_compile_cache, memory_budget
+
+    enable_compile_cache()
     import jax.numpy as jnp
 
-    from pbte_tpu import mesh as pmesh
-    from pbte_tpu.angular import quadrature as ang
-    from pbte_tpu.fem import assembly
-    from pbte_tpu.material import nongray_smrt as mat
-    from pbte_tpu.solver.source_iteration import SourceIterationSolver
+    from pbte import mesh as pmesh
+    from pbte.angular import quadrature as ang
+    from pbte.fem import assembly
+    from pbte.material import nongray_smrt as mat
+    from pbte.solver.source_iteration import SourceIterationSolver
 
     n = int(os.environ.get("PBTE_TET_N", 5))
     order = int(os.environ.get("PBTE_TET_ORDER", 3))
@@ -88,7 +82,8 @@ def main() -> None:
         f"temp={ma.temp_size_in_bytes / gb:.2f} GiB "
         f"alias={ma.alias_size_in_bytes / gb:.2f} GiB "
         f"peak(args+out+temp-alias)="
-        f"{(ma.argument_size_in_bytes + ma.output_size_in_bytes + ma.temp_size_in_bytes - ma.alias_size_in_bytes) / gb:.2f} GiB"
+        f"{(ma.argument_size_in_bytes + ma.output_size_in_bytes + ma.temp_size_in_bytes - ma.alias_size_in_bytes) / gb:.2f} GiB; "
+        f"device budget {memory_budget() / gb:.2f} GiB"
     )
 
 

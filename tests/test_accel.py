@@ -10,11 +10,11 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from pbte_tpu import mesh as pmesh
-from pbte_tpu.angular import quadrature as ang
-from pbte_tpu.fem import assembly
-from pbte_tpu.material import nongray_smrt as mat
-from pbte_tpu.solver.source_iteration import SourceIterationSolver
+from pbte import mesh as pmesh
+from pbte.angular import quadrature as ang
+from pbte.fem import assembly
+from pbte.material import nongray_smrt as mat
+from pbte.solver.source_iteration import SourceIterationSolver
 
 BCS3 = {a: (0.5 if a == 6 else -0.5) for a in range(1, 7)}
 
@@ -111,7 +111,7 @@ def test_bicgstab_stagnation_guard_is_cadence_independent(reference_root):
     problem stopped at relres 1.6e-5 on its way to 3.6e-10 (measured). The
     guard now additionally requires >=60 matvecs without a 10% improvement,
     making the stop cadence-independent; this run must reach the tolerance."""
-    from pbte_tpu import mesh as pmesh2
+    from pbte import mesh as pmesh2
 
     m = pmesh2.load_mfem_mesh(
         str(reference_root / "config/mesh/unit-square-iso.mesh"))
@@ -142,7 +142,7 @@ def test_bicgstab_checkpoint_and_max_iter_cap(tmp_path):
     import os
 
     assert os.path.exists(ck), "accelerated solve wrote no checkpoint"
-    from pbte_tpu.io.checkpoint import load_checkpoint
+    from pbte.io.checkpoint import load_checkpoint
 
     state, nmv_ck, _ = load_checkpoint(ck, s)
     assert nmv_ck > 0
@@ -195,7 +195,7 @@ def test_compensated_matches_plain_fixed_point_f64():
 
 
 def test_compensated_f32_floor_equals_plain_floor():
-    """MEASURED REFUTATION (VERDICT r4 item 2): in float32 with exact CPU
+    """MEASURED REFUTATION: in float32 with exact CPU
     dots, the compensated double-f32 state converges to the IDENTICAL
     floor as the plain iteration (1.83e-6 rel-L2 vs f64 truth at hex 6^3)
     — the converged bias is the f32 rounding of the step's own OUTPUTS,
@@ -227,9 +227,9 @@ def test_compensated_f32_floor_equals_plain_floor():
 def test_refined_solve_reaches_1e8():
     """Iterative refinement (accel.refined_solve): f32 base solve + ONE
     f64 defect step + f32 correction solve must land within 1e-8 rel-L2 of
-    the f64 truth — the field-precision north star (BASELINE.json), met
+    the f64 truth — the field-precision north star (ROADMAP.md), met
     with float64 used only for a single step application."""
-    from pbte_tpu.solver import accel
+    from pbte.solver import accel
 
     ops, quad, tables = _problem(nx=6)
     s64 = SourceIterationSolver(ops, quad, tables, BCS3, dtype=jnp.float64,
@@ -263,7 +263,7 @@ def test_correction_bicgstab_matches_plain_correction():
     inner solver of the refined flagship runner's --inner krylov mode."""
     import jax
 
-    from pbte_tpu.solver import accel
+    from pbte.solver import accel
 
     ops, quad, tables = _problem(nx=4)
     s = SourceIterationSolver(ops, quad, tables, BCS3, dtype=jnp.float64,
@@ -283,7 +283,7 @@ def test_correction_bicgstab_matches_plain_correction():
     e_kry, n_kry, rel_kry = accel.correction_bicgstab(
         step_fn, s.initial_state(), d, tol=1e-10, max_iter=3000,
         verbose=False, check_every=5)
-    # host-spilled-d variant (the flagship HBM envelope): d's device
+    # host-spilled-d variant (the flagship memory envelope): d's device
     # buffers are deleted, the recurrence must be unaffected
     d2 = jax.tree_util.tree_map(lambda a: a.copy(), d)
     e_sp, n_sp, rel_sp = accel.correction_bicgstab(

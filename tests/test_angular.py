@@ -8,7 +8,7 @@ Golden sources:
 import numpy as np
 import pytest
 
-from pbte_tpu.angular import quadrature as ang
+from pbte.angular import quadrature as ang
 
 
 def _parse_angles(path):

@@ -10,12 +10,12 @@ import pytest
 
 import jax.numpy as jnp
 
-from pbte_tpu import mesh as pmesh
-from pbte_tpu.angular import quadrature as ang
-from pbte_tpu.fem import assembly
-from pbte_tpu.material import nongray_smrt as mat
-from pbte_tpu.solver.source_iteration import SourceIterationSolver
-from pbte_tpu.validation.oracle import solve_oracle
+from pbte import mesh as pmesh
+from pbte.angular import quadrature as ang
+from pbte.fem import assembly
+from pbte.material import nongray_smrt as mat
+from pbte.solver.source_iteration import SourceIterationSolver
+from pbte.validation.oracle import solve_oracle
 
 
 def _problem(nx=4, ny=3):
@@ -63,7 +63,7 @@ def test_dirichlet_satisfies_bc_check():
 
 
 def test_legacy_config_type7(tmp_path):
-    from pbte_tpu.config import load_legacy_control
+    from pbte.config import load_legacy_control
 
     p = tmp_path / "Control.yaml"
     p.write_text(
@@ -77,7 +77,7 @@ def test_legacy_config_type7(tmp_path):
 
 
 def test_modern_config_dirichlet(tmp_path):
-    from pbte_tpu.config import load_run_config
+    from pbte.config import load_run_config
 
     p = tmp_path / "config.yaml"
     p.write_text(

@@ -10,8 +10,8 @@ import re
 import numpy as np
 import pytest
 
-from pbte_tpu import mesh as pmesh
-from pbte_tpu.fem import assembly, reference as fref
+from pbte import mesh as pmesh
+from pbte.fem import assembly, reference as fref
 
 
 def _parse_integrals(path):
@@ -197,7 +197,7 @@ def test_exact_volume_operators_match_quadrature(geom, make, order):
 
 def test_exact_monomial_integrals_values():
     """Spot values: int over unit triangle of 1, x, x*y, x^2."""
-    from pbte_tpu.fem.exact import monomial_integrals_simplex
+    from pbte.fem.exact import monomial_integrals_simplex
 
     expo = np.array([[0, 0], [1, 0], [1, 1], [2, 0]])
     got = monomial_integrals_simplex(expo, 2)
@@ -211,7 +211,7 @@ def test_element_classes_noise_merge_p3():
     exploding the class-factor build). The representative merge pass must
     collapse them to 1 — while genuinely different elements (a stretched
     lattice with two element sizes) must stay separate."""
-    from pbte_tpu import mesh as pmesh
+    from pbte import mesh as pmesh
 
     m = pmesh.make_cartesian_3d(4, 4, 4, "hex").scaled(1e-6)
     ops = assembly.assemble(pmesh.connect(m), order=3,

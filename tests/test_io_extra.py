@@ -5,11 +5,11 @@ import os
 import numpy as np
 import pytest
 
-from pbte_tpu import mesh as pmesh
-from pbte_tpu.angular import legacy_patterns, quadrature as ang
-from pbte_tpu.fem import assembly
-from pbte_tpu.material import nongray_smrt as mat
-from pbte_tpu.solver.source_iteration import SourceIterationSolver
+from pbte import mesh as pmesh
+from pbte.angular import legacy_patterns, quadrature as ang
+from pbte.fem import assembly
+from pbte.material import nongray_smrt as mat
+from pbte.solver.source_iteration import SourceIterationSolver
 
 GMSH_CUBOID = "Reference Project/config/mesh/cuboid_2x2x2.msh"
 
@@ -66,7 +66,7 @@ def test_legacy_pattern_validation():
 
 
 def test_checkpoint_roundtrip(tmp_path, reference_root):
-    from pbte_tpu.io.checkpoint import load_checkpoint, save_checkpoint
+    from pbte.io.checkpoint import load_checkpoint, save_checkpoint
 
     m = pmesh.load_mfem_mesh(str(reference_root / "config/mesh/unit-square-iso.mesh"))
     m = m.scaled(1e-6)
@@ -99,7 +99,7 @@ def test_checkpoint_roundtrip(tmp_path, reference_root):
 
 
 def test_legacy_control_yaml(reference_root):
-    from pbte_tpu.config import load_run_config
+    from pbte.config import load_run_config
 
     rc = load_run_config(
         str(reference_root / "Reference Project/config/control/Control.yaml")
@@ -117,7 +117,7 @@ def test_repo_config_assets():
     """The repo's own config/ mirrors the reference demo schema."""
     import os
 
-    from pbte_tpu.config import load_run_config
+    from pbte.config import load_run_config
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     rc = load_run_config(os.path.join(root, "config/config.yaml"))
@@ -130,7 +130,7 @@ def test_repo_config_assets():
 def test_3d_slice_with_flux(tmp_path):
     """z-plane sampling of T and Q on a 3D solve (legacy output_3D_2Dslice_T_Q
     analog): hot top/cold bottom -> Qz < 0 on the midplane, Qx/Qy ~ 0 net."""
-    from pbte_tpu.io.slice import write_3d_slice
+    from pbte.io.slice import write_3d_slice
 
     m = pmesh.make_cartesian_3d(2, 2, 2, pmesh.GEOM_HEX).scaled(1e-6)
     ops = assembly.assemble(pmesh.connect(m), order=1, face_mode="consistent")
@@ -156,7 +156,7 @@ def test_3d_line_slice(tmp_path):
     ref: reference/PhononModel/NonGraySMRT.cpp:257-375): T along z between a
     cold bottom and hot top must be monotone-ish and bracketed; file format is
     'x y z T Qx Qy Qz'."""
-    from pbte_tpu.io.slice import write_3d_line_slice
+    from pbte.io.slice import write_3d_line_slice
 
     m = pmesh.make_cartesian_3d(2, 2, 2, pmesh.GEOM_HEX).scaled(1e-6)
     ops = assembly.assemble(pmesh.connect(m), order=1, face_mode="consistent")
@@ -190,8 +190,8 @@ def test_vtu_high_order_subdivision(tmp_path):
     SetHighOrderOutput, src/MacroscopicQuantities.cpp:168-271)."""
     import re
 
-    from pbte_tpu.fem import reference as fref
-    from pbte_tpu.io.vtu import write_vtu
+    from pbte.fem import reference as fref
+    from pbte.io.vtu import write_vtu
 
     m = pmesh.make_cartesian_2d(2, 2, pmesh.GEOM_QUAD)
     b = fref.basis(pmesh.GEOM_QUAD, 2)
@@ -221,7 +221,7 @@ def test_vtu_high_order_subdivision(tmp_path):
 
 
 def test_vtu_lod0_backcompat(tmp_path):
-    from pbte_tpu.io.vtu import write_vtu
+    from pbte.io.vtu import write_vtu
 
     m = pmesh.make_cartesian_3d(2, 2, 2, pmesh.GEOM_TET)
     topo = pmesh.connect(m)
@@ -234,7 +234,7 @@ def test_vtu_lod0_backcompat(tmp_path):
 
 def test_2d_slice_tq(tmp_path):
     """Legacy output_2D_slice_T_Q analog: T and Q sampled on a 2D mesh."""
-    from pbte_tpu.io.slice import write_2d_slice_tq
+    from pbte.io.slice import write_2d_slice_tq
 
     m = pmesh.make_cartesian_2d(3, 3, pmesh.GEOM_TRIANGLE).scaled(1e-6)
     ops = assembly.assemble(pmesh.connect(m), order=1, face_mode="consistent")
@@ -259,7 +259,7 @@ def test_paraview_collection(tmp_path):
     Cycle%06d/data.pvtu wrapping proc000000.vtu pieces."""
     import xml.etree.ElementTree as ET
 
-    from pbte_tpu.io.vtu import ParaViewCollection
+    from pbte.io.vtu import ParaViewCollection
 
     m = pmesh.make_cartesian_2d(2, 2, pmesh.GEOM_QUAD)
     ops = assembly.assemble(pmesh.connect(m), order=1, face_mode="consistent")
@@ -295,7 +295,7 @@ def test_cli_vtu_every(tmp_path):
 
     out = tmp_path / "out"
     r = subprocess.run(
-        [_sys.executable, "-m", "pbte_tpu.cli", "-m", "unit-square-quad",
+        [_sys.executable, "-m", "pbte.cli", "-m", "unit-square-quad",
          "-o", "1", "--max-iter", "6", "--vtu-every", "3",
          "--no-dumps", "--out", str(out)],
         capture_output=True, text=True, timeout=600,
@@ -322,15 +322,15 @@ def _parse_vtu_array(path, name):
 
 
 def test_write_pvtu_partitioned(tmp_path):
-    """Distributed field export (VERDICT r4 missing item 3): one .vtu piece
+    """Distributed field export: one .vtu piece
     per partition + .pvtu index, matching the reference's parallel
     WriteParaView per-rank pieces (ref: src/MacroscopicQuantities.cpp:168-271).
     Piece point-data must equal the basis evaluation of each partition's
     local coefficient block."""
     import xml.etree.ElementTree as ET
 
-    from pbte_tpu.fem import reference as fref
-    from pbte_tpu.io.vtu import write_pvtu
+    from pbte.fem import reference as fref
+    from pbte.io.vtu import write_pvtu
 
     m = pmesh.make_cartesian_2d(4, 4, pmesh.GEOM_QUAD)
     ops = assembly.assemble(pmesh.connect(m), order=1, face_mode="consistent")
@@ -367,7 +367,7 @@ def test_paraview_collection_partitioned(tmp_path):
     the .pvtu indexes all of them."""
     import xml.etree.ElementTree as ET
 
-    from pbte_tpu.io.vtu import ParaViewCollection
+    from pbte.io.vtu import ParaViewCollection
 
     m = pmesh.make_cartesian_2d(2, 2, pmesh.GEOM_QUAD)
     ops = assembly.assemble(pmesh.connect(m), order=1, face_mode="consistent")

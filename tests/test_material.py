@@ -8,7 +8,7 @@ Golden sources:
 import numpy as np
 import pytest
 
-from pbte_tpu.material import nongray_smrt as mat
+from pbte.material import nongray_smrt as mat
 
 
 def _parse_phonon_properties(path):

@@ -7,7 +7,7 @@ Golden source: /root/reference/output/log/mesh_unit-square-iso_p1_dim2.txt
 import numpy as np
 import pytest
 
-from pbte_tpu import mesh as pmesh
+from pbte import mesh as pmesh
 
 
 @pytest.fixture
@@ -157,7 +157,7 @@ def test_uniform_refine_preserves_volume_and_boundary(m):
 
 
 def test_summary_golden_format(iso2d, reference_root, tmp_path):
-    from pbte_tpu.mesh.summary import make_summary
+    from pbte.mesh.summary import make_summary
 
     topo = pmesh.connect(iso2d)
     # p=1 triangle: 3 dofs/elem, 2 elems -> 6 ndofs
@@ -184,7 +184,7 @@ def _connect_dict_scan(mesh):
     """The naive per-element dict scan connect() replaced (kept as the
     semantics oracle: faces numbered first-seen, first-occurrence vertex
     orientation, later boundary entries override)."""
-    from pbte_tpu.mesh.core import LOCAL_FACES
+    from pbte.mesh.core import LOCAL_FACES
 
     local_faces = LOCAL_FACES[mesh.geom]
     nf = len(local_faces)
@@ -238,8 +238,8 @@ def test_connect_matches_dict_scan(make):
 
 
 def test_connect_scales():
-    """Setup budget: connect() on a ~1e5-element mesh in seconds, not minutes
-    (VERDICT round-1 weak #7)."""
+    """Setup budget: connect() on a ~1e5-element mesh in seconds, not
+    minutes."""
     import time
 
     m = pmesh.make_cartesian_3d(26, 26, 26, pmesh.GEOM_TET)  # 105k tets

@@ -23,13 +23,13 @@ import sys
 import numpy as np
 import pytest
 
-from pbte_tpu import mesh as pmesh
-from pbte_tpu.angular import quadrature as ang
-from pbte_tpu.fem import assembly
-from pbte_tpu.material import nongray_smrt as mat
-from pbte_tpu.mesh import core as mesh_core
-from pbte_tpu.solver.source_iteration import SourceIterationSolver
-from pbte_tpu.validation.oracle import solve_oracle
+from pbte import mesh as pmesh
+from pbte.angular import quadrature as ang
+from pbte.fem import assembly
+from pbte.material import nongray_smrt as mat
+from pbte.mesh import core as mesh_core
+from pbte.solver.source_iteration import SourceIterationSolver
+from pbte.validation.oracle import solve_oracle
 
 BCS = {1: -0.5, 2: 0.5, 3: 0.25, 4: -0.25}
 
@@ -181,7 +181,7 @@ $EndElements
 """
     p = tmp_path / "mix.msh"
     p.write_text(text)
-    from pbte_tpu.mesh.gmsh_io import load_gmsh_mesh
+    from pbte.mesh.gmsh_io import load_gmsh_mesh
 
     m = load_gmsh_mesh(str(p))
     assert m.geom == mesh_core.GEOM_MIXED
@@ -213,9 +213,9 @@ def test_mixed_uniform_refine():
 
 def test_mixed_sample_and_vtu(tmp_path):
     """Point sampling and VTU subdivision output on a mixed solve."""
-    from pbte_tpu.fem import reference as fem_ref
-    from pbte_tpu.io.slice import sample_field
-    from pbte_tpu.io.vtu import write_vtu
+    from pbte.fem import reference as fem_ref
+    from pbte.io.slice import sample_field
+    from pbte.io.vtu import write_vtu
 
     m = pmesh.make_mixed_2d(4, 3).scaled(1e-6)
     ops = assembly.assemble(pmesh.connect(m), order=2,
@@ -263,7 +263,7 @@ def test_cli_mixed_builtin(tmp_path):
     env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run(
-        [sys.executable, "-m", "pbte_tpu.cli", "--platform", "cpu",
+        [sys.executable, "-m", "pbte.cli", "--platform", "cpu",
          "-m", "unit-square-mixed", "-o", "2", "--face-mode", "consistent",
          "--max-iter", "4", "--tol", "0", "--vtu"],
         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=480,
@@ -337,7 +337,7 @@ def test_prism_pyramid_reference_exactness():
 
     from scipy.special import beta
 
-    from pbte_tpu.fem import quadrature as fquad
+    from pbte.fem import quadrature as fquad
 
     for p in (1, 2, 3):
         deg = 2 * p + 1
@@ -358,7 +358,7 @@ def test_prism_pyramid_reference_exactness():
             want = 1.0 / ((a + 1) * (b + 1)) * beta(c + 1, a + b + 3)
             np.testing.assert_allclose(got, want, rtol=1e-13, atol=1e-16)
         # nodal bases are unisolvent for both new geometries
-        from pbte_tpu.fem import reference as fem_ref
+        from pbte.fem import reference as fem_ref
 
         for g in (mesh_core.GEOM_PRISM, mesh_core.GEOM_PYRAMID):
             bs = fem_ref.basis(g, p)
@@ -441,7 +441,7 @@ def test_mixed3d_solver_matches_oracle():
     np.testing.assert_allclose(Tc, Tco, rtol=1e-10, atol=1e-14)
     # padded dofs of the narrower geometries stay exactly zero
     ub = solver.u_by_direction(res.u)
-    from pbte_tpu.fem import reference as fem_ref
+    from pbte.fem import reference as fem_ref
 
     for code in np.unique(m.elem_geom):
         g = mesh_core.MFEM_GEOM_CODES[int(code)]
@@ -490,7 +490,7 @@ $EndElements
 """
     p = tmp_path / "mix3d.msh"
     p.write_text(text)
-    from pbte_tpu.mesh.gmsh_io import load_gmsh_mesh
+    from pbte.mesh.gmsh_io import load_gmsh_mesh
 
     m = load_gmsh_mesh(str(p))
     assert m.geom == mesh_core.GEOM_MIXED
@@ -506,15 +506,15 @@ $EndElements
 
 def test_mixed3d_sample_and_vtu(tmp_path):
     """Point location inside prisms/pyramids + VTU cell types 13/14."""
-    from pbte_tpu.io.slice import sample_field
-    from pbte_tpu.io.vtu import write_vtu
+    from pbte.io.slice import sample_field
+    from pbte.io.vtu import write_vtu
 
     m = pmesh.load_builtin("unit-cube-mixed")
     topo = pmesh.connect(m)
     ops = assembly.assemble(topo, order=1, face_mode="consistent")
     # a LINEAR field is exactly representable at p=1 on every member
     # geometry: project f(x)=2x - 3y + z by nodal interpolation
-    from pbte_tpu.fem import reference as fem_ref
+    from pbte.fem import reference as fem_ref
 
     coeffs = np.zeros((m.num_elements, ops.ndof))
     for e in range(m.num_elements):

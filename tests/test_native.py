@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from pbte_tpu import mesh as pmesh, native
-from pbte_tpu.angular import quadrature as ang
-from pbte_tpu.sweep import planner
+from pbte import mesh as pmesh, native
+from pbte.angular import quadrature as ang
+from pbte.sweep import planner
 
 
 @pytest.fixture(scope="module")
@@ -86,8 +86,8 @@ def test_native_cycle_detection():
 
 @pytest.fixture(scope="module")
 def solver_problem():
-    from pbte_tpu.fem import assembly
-    from pbte_tpu.material import nongray_smrt as mat
+    from pbte.fem import assembly
+    from pbte.material import nongray_smrt as mat
 
     m = pmesh.make_cartesian_2d(3, 3, pmesh.GEOM_TRIANGLE).scaled(1e-6)
     ops = assembly.assemble(pmesh.connect(m), order=1, face_mode="consistent")
@@ -101,7 +101,7 @@ def test_cpp_solver_matches_oracle(solver_problem):
     """The C++ baseline must reproduce the Python oracle bit-for-bit-ish:
     same algorithm (lagged-Tc source iteration, upwind sweeps, dense LU),
     f64 throughout (ref: src/PBTESolver.cpp:208-332)."""
-    from pbte_tpu.validation.oracle import solve_oracle
+    from pbte.validation.oracle import solve_oracle
 
     ops, quad, tables, bcs = solver_problem
     out = native.cpp_source_iteration(ops, quad, tables, bcs, 5)

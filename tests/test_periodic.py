@@ -11,12 +11,12 @@ outer iterate, like a block-Jacobi partition interface.
 import numpy as np
 import pytest
 
-from pbte_tpu import mesh as pmesh
-from pbte_tpu.angular import quadrature as ang
-from pbte_tpu.fem import assembly
-from pbte_tpu.material import nongray_smrt as mat
-from pbte_tpu.solver.source_iteration import SourceIterationSolver
-from pbte_tpu.validation.oracle import solve_oracle
+from pbte import mesh as pmesh
+from pbte.angular import quadrature as ang
+from pbte.fem import assembly
+from pbte.material import nongray_smrt as mat
+from pbte.solver.source_iteration import SourceIterationSolver
+from pbte.validation.oracle import solve_oracle
 
 # x-periodic strip: bottom (attr 1) cold, top (attr 3) hot; left/right (2, 4)
 # wrap. Builtin Cartesian 2D attrs: 1=bottom, 2=right, 3=top, 4=left.
@@ -115,7 +115,7 @@ def test_periodic_3d_hex():
 
 def test_gmsh_periodic_records_wire_in(tmp_path):
     """A gmsh 2.2 file with $Periodic node pairs pairs faces on load."""
-    from pbte_tpu.mesh.gmsh_io import parse_gmsh_mesh
+    from pbte.mesh.gmsh_io import parse_gmsh_mesh
 
     # 2x1 quad strip on [0,2]x[0,1]; nodes 1..6; left edge (1,4), right (3,6)
     text = """$MeshFormat
@@ -158,7 +158,7 @@ $EndPeriodic
 
 
 def test_legacy_config_type4():
-    from pbte_tpu.config import load_legacy_control
+    from pbte.config import load_legacy_control
 
     import tempfile, os
 
@@ -176,7 +176,7 @@ def test_legacy_config_type4():
 
 
 def test_native_baseline_rejects_periodic():
-    from pbte_tpu import native
+    from pbte import native
 
     m, topo, ops = _strip(nx=3, ny=2)
     quad = ang.build(ang.AngularOptions(dimension=2, azimuth_points=8))

@@ -24,12 +24,12 @@ import pytest
 
 import jax.numpy as jnp
 
-from pbte_tpu import mesh as pmesh
-from pbte_tpu.angular import quadrature as ang
-from pbte_tpu.fem import assembly
-from pbte_tpu.material import nongray_smrt as mat
-from pbte_tpu.solver.source_iteration import SourceIterationSolver
-from pbte_tpu.validation.oracle import mirror_direction_map, solve_oracle
+from pbte import mesh as pmesh
+from pbte.angular import quadrature as ang
+from pbte.fem import assembly
+from pbte.material import nongray_smrt as mat
+from pbte.solver.source_iteration import SourceIterationSolver
+from pbte.validation.oracle import mirror_direction_map, solve_oracle
 
 
 def _problem2d(nx=4, ny=3, nspec=2, ndir=8):
@@ -262,7 +262,7 @@ def test_config_parses_reflective_types(tmp_path):
     """Legacy Control.yaml types 2/3 and modern 'diffuse'/'specular'
     entries land in RunConfig (the reference parses these types too but
     its solvers reject them)."""
-    from pbte_tpu.config import load_legacy_control, load_run_config
+    from pbte.config import load_legacy_control, load_run_config
 
     ctrl = tmp_path / "Control.yaml"
     ctrl.write_text(

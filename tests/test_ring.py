@@ -1,5 +1,5 @@
 """Ring sweep mode: padded slab scan with one-hot neighbor matmuls and
-class-batched dense transport factors (the TPU fast path; see
+class-batched dense transport factors (the fast path; see
 solver/source_iteration.py sweep_mode="ring")."""
 
 import numpy as np
@@ -7,12 +7,12 @@ import pytest
 
 import jax.numpy as jnp
 
-from pbte_tpu import mesh as pmesh
-from pbte_tpu.angular import quadrature as ang
-from pbte_tpu.fem import assembly
-from pbte_tpu.material import nongray_smrt as mat
-from pbte_tpu.solver.source_iteration import SourceIterationSolver
-from pbte_tpu.validation.oracle import solve_oracle
+from pbte import mesh as pmesh
+from pbte.angular import quadrature as ang
+from pbte.fem import assembly
+from pbte.material import nongray_smrt as mat
+from pbte.solver.source_iteration import SourceIterationSolver
+from pbte.validation.oracle import solve_oracle
 
 BCS3 = {1: -0.5, 2: -0.5, 3: -0.5, 4: -0.5, 5: -0.5, 6: 0.5}
 BCS2 = {1: -0.5, 2: -0.5, 3: 0.5, 4: -0.5}
@@ -117,7 +117,7 @@ def test_ring_with_dir_sharding():
 
 def test_ring_checkpoint_roundtrip(tmp_path):
     """Bucketed ring state saves/loads; resumed run == uninterrupted run."""
-    from pbte_tpu.io.checkpoint import load_checkpoint, save_checkpoint
+    from pbte.io.checkpoint import load_checkpoint, save_checkpoint
 
     m = pmesh.make_cartesian_3d(6, 6, 6, "hex").scaled(1e-6)
     ops = assembly.assemble(pmesh.connect(m), order=1, face_mode="consistent")
@@ -224,11 +224,9 @@ def test_ring_stretched_lattice_multiclass_oracle():
 
 def test_ring_bf16_staging_close_to_f32():
     """bf16 operand staging (PBTE_RING_BF16=1): carry + xcat stored bf16.
-    On TPU this is numerically free (the default-precision MXU truncates
-    operands to bf16 inside the dot anyway); on CPU, where the f32 einsum
-    is exact, it introduces exactly one extra bf16 rounding of the carried
-    neighbor values — the field must stay within that noise class of the
-    unstaged f32 ring."""
+    On CPU, where the f32 einsum is exact, it introduces exactly one extra
+    bf16 rounding of the carried neighbor values — the field must stay
+    within that noise class of the unstaged f32 ring."""
     import os
 
     m = pmesh.make_cartesian_3d(8, 8, 8, "hex").scaled(1e-6)
@@ -259,12 +257,12 @@ def test_ring_bf16_staging_close_to_f32():
 
 
 def test_ring_windowed_matches_full_slab():
-    """Hull-windowed lattice ring (per-segment lane-aligned windows +
+    """Hull-windowed lattice ring (per-segment 128-slot aligned windows +
     rewindowed carry) must equal the full-W slab ring bit-for-bit in f64 —
     windows only skip slots that are provably invalid (outside the
     wavefront hull), and the segment-entry carry frame must cover the
     previous level's hull (the _fit_ring_window correctness constraint).
-    The mesh must have a >128-lane plane (16x16 = 256) or aligned windows
+    The mesh must have a >128-slot plane (16x16 = 256) or aligned windows
     cannot engage at all. A Dirichlet face exercises the windowed dsrc
     slabs alongside the isothermal bsrc ones."""
     import os
@@ -295,7 +293,7 @@ def test_ring_windowed_matches_full_slab():
     slot_tot = sum((l1 - l0) * Ws for l0, l1, _, _, Ws in s_w._ring_segs)
     assert slot_tot < s_w.L * s_w.W  # windows actually shrink the slab
     for (_, _, o0, d, Ws) in s_w._ring_segs:
-        assert d == 0 and o0 % 128 == 0  # lane-aligned or not at all
+        assert d == 0 and o0 % 128 == 0  # aligned or not at all
         assert Ws % 128 == 0 or o0 + Ws == s_w.W
     s_f, r_f = run("0")
     # identical up to float summation ORDER. The tolerance is relative to
@@ -318,8 +316,8 @@ def test_ring_windowed_matches_full_slab():
 def test_ring_windowed_with_dir_sharding():
     """Hull-windowed ring under ordinate sharding: the per-segment consts
     and the nested (bucket, segment) state must carry the NamedSharding.
-    16^3 is the smallest plane where lane-aligned windows can engage (the
-    plane must exceed 128 lanes)."""
+    16^3 is the smallest plane where aligned windows can engage (the
+    plane must exceed 128 slots)."""
     import os
 
     import jax
@@ -356,7 +354,7 @@ def test_ring_windowed_checkpoint_roundtrip(tmp_path):
     as u_{i}_{s} npz fields; load_checkpoint must reassemble the nesting
     (a round-3 bug: the loader only knew the flat-bucket u_{i} layout, so
     every windowed checkpoint failed to resume). Resumed run == full run."""
-    from pbte_tpu.io.checkpoint import load_checkpoint, save_checkpoint
+    from pbte.io.checkpoint import load_checkpoint, save_checkpoint
 
     m = pmesh.make_cartesian_3d(16, 16, 16, "hex").scaled(1e-6)
     ops = assembly.assemble(pmesh.connect(m), order=1, face_mode="consistent")
@@ -365,7 +363,7 @@ def test_ring_windowed_checkpoint_roundtrip(tmp_path):
     tables = mat.build_tables(mat.SILICON, num_spectral=2)
     s = SourceIterationSolver(ops, quad, tables, BCS3, dtype=jnp.float64,
                               sweep_mode="ring")
-    assert s._ring_windowed  # 16x16 plane: lane-aligned windows engage
+    assert s._ring_windowed  # 16x16 plane: aligned windows engage
     assert isinstance(s.initial_state()[0][0], tuple)  # nested state
     full = s.solve(tol=0, max_iter=4, verbose=False)
     half = s.solve(tol=0, max_iter=2, verbose=False)
@@ -382,14 +380,14 @@ def test_ring_windowed_checkpoint_roundtrip(tmp_path):
 def test_ring_state_bf16_close_to_f32():
     """bf16 STATE storage (PBTE_RING_STATE_BF16=1): the scan ys and the
     carried slabs between outer iterations are stored bf16 (halving the ys
-    write + v_l read HBM streams). On top of operand staging this adds one
+    write + v_l read memory streams). On top of operand staging this adds one
     bf16 rounding of v between iterations — same noise class; the field
     must stay within it. Runs on the 16^3 WINDOWED path so the per-segment
     ys emission is covered too; checkpoint save/load round-trips the bf16
     state through the f32 npz encoding."""
     import os
 
-    from pbte_tpu.io.checkpoint import load_checkpoint, save_checkpoint
+    from pbte.io.checkpoint import load_checkpoint, save_checkpoint
 
     m = pmesh.make_cartesian_3d(16, 16, 16, "hex").scaled(1e-6)
     ops = assembly.assemble(pmesh.connect(m), order=1,
@@ -441,8 +439,9 @@ def test_ring_state_bf16_close_to_f32():
 def test_polish_equals_extra_steps_f64():
     """solve(polish_iters=N) at f64 (where every precision is exact) must
     equal N extra plain iterations — the polish recipe's correctness; its
-    VALUE is on TPU, where the exact-precision tail contracts the
-    default-precision field bias by rho^N (BASELINE.md precision tiers)."""
+    VALUE is on an accelerator whose default precision rounds matmul
+    operands, where the exact-precision tail contracts the field bias by
+    rho^N (README, "Precision")."""
     m = pmesh.make_cartesian_3d(4, 4, 4, "hex").scaled(1e-6)
     ops = assembly.assemble(pmesh.connect(m), order=1, face_mode="consistent")
     quad = ang.build(ang.AngularOptions(dimension=3, polar_points=2,
@@ -481,8 +480,8 @@ def test_polish_extrapolation_accelerates_slow_modes():
 
 def test_ring_fold_env_two_matmul_matches(monkeypatch):
     """PBTE_RING_FOLD=0 (two-matmul body on any lattice) must match the
-    default folded body exactly — the measured shape-dependent A/B lever
-    (fold wins on hex, two-matmul on supercells; BASELINE.md r4c)."""
+    default folded body exactly — the shape-dependent A/B lever (folded
+    body on hex lattices, two-matmul on supercells; ROADMAP 3.2)."""
     m = pmesh.make_cartesian_3d(8, 8, 8, "hex").scaled(1e-6)
     ops = assembly.assemble(pmesh.connect(m), order=1, face_mode="consistent")
     quad = ang.build(ang.AngularOptions(dimension=3, polar_points=2,
@@ -503,9 +502,10 @@ def test_ring_fold_env_two_matmul_matches(monkeypatch):
 
 
 def test_ring_max_segs_env(monkeypatch):
-    """PBTE_RING_MAX_SEGS caps the hull-window segment count (the measured
-    cold-compile lever: 525 -> 109 s at +5% step time, BASELINE.md) and
-    the capped solver still produces identical iterates."""
+    """PBTE_RING_MAX_SEGS caps the hull-window segment count (each segment
+    compiles its own scan body, so the cap trades step time for cold-compile
+    time; ROADMAP 3.3) and the capped solver still produces identical
+    iterates."""
     m = pmesh.make_cartesian_3d(8, 8, 8, "hex").scaled(1e-6)
     ops = assembly.assemble(pmesh.connect(m), order=1, face_mode="consistent")
     quad = ang.build(ang.AngularOptions(dimension=3, polar_points=2,

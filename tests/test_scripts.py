@@ -3,7 +3,7 @@
 The viz scripts are the framework's counterpart of the reference's
 postprocessing layer (ref: scripts/plot2d_contour.py, reference/plot3D.ipynb).
 These tests drive them end-to-end on synthetic slice files in the exact
-formats pbte_tpu.io.slice writes, so a format drift in either side breaks
+formats pbte.io.slice writes, so a format drift in either side breaks
 here instead of at paper time.
 """
 

@@ -13,13 +13,13 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh
 
-from pbte_tpu import mesh as pmesh
-from pbte_tpu.angular import quadrature as ang
-from pbte_tpu.fem import assembly
-from pbte_tpu.material import nongray_smrt as mat
-from pbte_tpu.parallel.slab import SlabLatticeSolver
-from pbte_tpu.solver.source_iteration import SourceIterationSolver
-from pbte_tpu.validation.oracle import solve_oracle
+from pbte import mesh as pmesh
+from pbte.angular import quadrature as ang
+from pbte.fem import assembly
+from pbte.material import nongray_smrt as mat
+from pbte.parallel.slab import SlabLatticeSolver
+from pbte.solver.source_iteration import SourceIterationSolver
+from pbte.validation.oracle import solve_oracle
 
 BCS3 = {1: -0.5, 2: -0.5, 3: -0.5, 4: -0.5, 5: -0.5, 6: 0.5}
 BCS2 = {1: -0.5, 2: -0.5, 3: 0.5, 4: -0.5}
@@ -116,7 +116,7 @@ def test_slab_converges_to_single_device_fixed_point():
 
 
 def test_slab_checkpoint_roundtrip(tmp_path):
-    from pbte_tpu.io.checkpoint import load_checkpoint, save_checkpoint
+    from pbte.io.checkpoint import load_checkpoint, save_checkpoint
 
     tables = mat.build_tables(mat.SILICON, num_spectral=2)
     quad = ang.build(ang.AngularOptions(dimension=3, polar_points=2,

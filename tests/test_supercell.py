@@ -14,11 +14,11 @@ import pytest
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from pbte_tpu import mesh as pmesh  # noqa: E402
-from pbte_tpu.angular import quadrature as ang  # noqa: E402
-from pbte_tpu.fem import assembly, supercell  # noqa: E402
-from pbte_tpu.material import nongray_smrt as mat  # noqa: E402
-from pbte_tpu.solver.source_iteration import SourceIterationSolver  # noqa: E402
+from pbte import mesh as pmesh  # noqa: E402
+from pbte.angular import quadrature as ang  # noqa: E402
+from pbte.fem import assembly, supercell  # noqa: E402
+from pbte.material import nongray_smrt as mat  # noqa: E402
+from pbte.solver.source_iteration import SourceIterationSolver  # noqa: E402
 
 TABLES = mat.build_tables(mat.SILICON, num_spectral=3)
 
@@ -142,7 +142,7 @@ def test_six_tet_iterate_exact(order):
 def test_six_tet_oracle_convergence():
     """Converged solve through the supercell ring equals the sequential
     reference-mirror oracle (validation/oracle.py) on the fine mesh."""
-    from pbte_tpu.validation import oracle
+    from pbte.validation import oracle
 
     m = pmesh.make_cartesian_3d(2, 2, 2, "tet").scaled(1e-6)
     quad = ang.build(
@@ -253,8 +253,9 @@ def test_supercell_fold_ab_matches():
 
 
 def test_supercell_wd_ab_matches():
-    """PBTE_SUPER_WD=0 (W-minor layout) and the default WD layout (D'
-    on lanes) must produce identical iterates and outputs."""
+    """The default W-minor layout and the opt-in WD layout
+    (PBTE_SUPER_WD=1, D' minor) must produce identical iterates and
+    outputs."""
     import os as _os
 
     m = pmesh.make_cartesian_3d(3, 2, 2, "tet").scaled(1e-6)
@@ -293,7 +294,7 @@ def test_supercell_wd_ab_matches():
 def test_supercell_checkpoint_roundtrip(tmp_path):
     """Supercell ring state saves/loads (fingerprint tags the layout);
     resumed run == uninterrupted run."""
-    from pbte_tpu.io.checkpoint import load_checkpoint, save_checkpoint
+    from pbte.io.checkpoint import load_checkpoint, save_checkpoint
 
     m = pmesh.make_cartesian_3d(3, 2, 2, "tet").scaled(1e-6)
     ops = assembly.assemble(pmesh.connect(m), order=1, face_mode="consistent")
@@ -321,11 +322,14 @@ def test_supercell_checkpoint_roundtrip(tmp_path):
 
 
 @pytest.mark.slow
-def test_auto_memory_policy_at_production_shape():
+def test_auto_memory_policy_at_production_shape(monkeypatch):
     """The legacy FULL production config (5^3 6-tet, p=3, 16x24=384 dirs,
-    2x20 bands) must build out of the box: supercell merge engaged, and
-    the auto memory policy selecting bf16 state + donation (the lane-
-    padded f32 two-buffer state exceeds a 16 GB chip)."""
+    2x20 bands) must build out of the box: supercell merge engaged, f32
+    state where two f32 state buffers (4.9 GB) fit their share of a 16 GB
+    budget, and the auto memory policy selecting bf16 state + donation
+    where they do not (a 4 GB budget)."""
+    from pbte import device
+
     m = pmesh.make_cartesian_3d(5, 5, 5, "tet").scaled(1e-6)
     ops = assembly.assemble(pmesh.connect(m), order=3,
                             face_mode="consistent")
@@ -333,9 +337,15 @@ def test_auto_memory_policy_at_production_shape():
         dimension=3, polar_points=16, azimuth_points=24))
     tables = mat.build_tables(mat.SILICON, num_spectral=20)
     bcs = {a: (0.5 if a == 6 else -0.5) for a in range(1, 7)}
+    monkeypatch.setattr(device, "memory_budget", lambda: 16e9)
     s = SourceIterationSolver(ops, quad, tables, bcs, dtype=jnp.float32)
     assert s._super is not None and s.sweep_mode == "ring"
     assert s.G == 8 and s.K == 384 and s.D == 120
+    assert not s._ring_state_bf16 and not s._auto_mem
+    del s
+    monkeypatch.setattr(device, "memory_budget", lambda: 4e9)
+    s = SourceIterationSolver(ops, quad, tables, bcs, dtype=jnp.float32)
+    assert s._super is not None and s.sweep_mode == "ring"
     assert s._ring_state_bf16 and s._auto_mem
     u, Tc, Tv = s.initial_state()
     assert u[0].dtype == jnp.bfloat16

@@ -10,9 +10,9 @@ matching them also validates the refinement element ordering vs MFEM's.
 import numpy as np
 import pytest
 
-from pbte_tpu import mesh as pmesh
-from pbte_tpu.angular import quadrature as ang
-from pbte_tpu.sweep import planner
+from pbte import mesh as pmesh
+from pbte.angular import quadrature as ang
+from pbte.sweep import planner
 
 
 def _parse_sweep(path):
@@ -137,9 +137,9 @@ def test_detect_lattice_hex_and_refusals():
     """Lattice detection: recovers dims/coords on canonical-face hex meshes,
     refuses triangles (wrong face count), refuses non-canonical face order
     (per-slot normals differ), and ignores periodic-masked wrap faces."""
-    from pbte_tpu import mesh as pmesh
-    from pbte_tpu.fem import assembly
-    from pbte_tpu.sweep.planner import detect_lattice
+    from pbte import mesh as pmesh
+    from pbte.fem import assembly
+    from pbte.sweep.planner import detect_lattice
 
     m = pmesh.make_cartesian_3d(5, 4, 3, "hex").scaled(1e-6)
     ops = assembly.assemble(pmesh.connect(m), order=1,
